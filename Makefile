@@ -1,6 +1,6 @@
-# bmsparse_tpu build/test entry points (the reference's Makefile analogue,
+# bmsparse build/test entry points (the reference's Makefile analogue,
 # ref: /root/reference/Makefile — nvcc targets become native-extension and
-# test/bench targets here; the TPU compute path needs no ahead-of-time
+# test/bench targets here; the JAX compute path needs no ahead-of-time
 # compilation).
 
 PY ?= python
@@ -19,4 +19,4 @@ bench:
 	$(PY) bench.py
 
 clean:
-	rm -rf build bmsparse_tpu/io/_mmparse*.so
+	rm -rf build bmsparse/io/_mmparse*.so

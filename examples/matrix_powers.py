@@ -26,9 +26,9 @@ def main(n: int = 65536, band: int = 8) -> int:
     import jax.numpy as jnp
     import scipy.sparse as sp
 
-    from bmsparse_tpu import coo_to_bmsparse, prepare_product
-    from bmsparse_tpu.ops.plan import prepare
-    from bmsparse_tpu.ops.spmv import spmv
+    from bmsparse import coo_to_bmsparse, prepare_product
+    from bmsparse.ops.plan import prepare
+    from bmsparse.ops.spmv import spmv
 
     rng = np.random.default_rng(0)
     offs = np.arange(-band // 2, band // 2 + 1)

@@ -1,6 +1,6 @@
-// _mmparse — native MatrixMarket coordinate parser for bmsparse_tpu.
+// _mmparse — native MatrixMarket coordinate parser for bmsparse.
 //
-// The TPU-native framework's analogue of the reference's C++ host-side
+// The analogue of the reference's C++ host-side
 // file ingestion (ifstream parse loop in the bmSpMatrix constructor,
 // ref: src/bmSpMatrix.cu:112-161, and the legacy mmread_bmSparse,
 // ref: src/reader.cu:49-110). Python-level line parsing is 20-50x slower

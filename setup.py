@@ -1,4 +1,4 @@
-"""Build the native extensions of bmsparse_tpu.
+"""Build the native extensions of bmsparse.
 
     python setup.py build_ext --inplace     (or: make native)
 
@@ -11,11 +11,11 @@ import numpy as np
 from setuptools import Extension, setup
 
 setup(
-    name="bmsparse-tpu-native",
+    name="bmsparse-native",
     version="0.1.0",
     ext_modules=[
         Extension(
-            "bmsparse_tpu.io._mmparse",
+            "bmsparse.io._mmparse",
             sources=["native/mmparse.cpp"],
             include_dirs=[np.get_include()],
             extra_compile_args=["-O3", "-std=c++17", "-Wall"],

@@ -13,7 +13,7 @@ import pytest
 import scipy.io
 import scipy.sparse as sp
 
-from bmsparse_tpu.io.matrix_market import HAVE_NATIVE, read_matrix_market
+from bmsparse.io.matrix_market import HAVE_NATIVE, read_matrix_market
 
 DATA = os.path.join(os.path.dirname(__file__), "..", "data", "real")
 
@@ -79,7 +79,7 @@ def test_mtx_suffix_appended():
 # CLI drivers
 # ---------------------------------------------------------------------------
 def test_cli_spmv(capsys):
-    from bmsparse_tpu.cli.spmv import main
+    from bmsparse.cli.spmv import main
 
     rc = main([DATA, "A_matrix", "--check", "--iters", "2"])
     out = capsys.readouterr().out
@@ -90,7 +90,7 @@ def test_cli_spmv(capsys):
 
 
 def test_cli_spgemm(capsys):
-    from bmsparse_tpu.cli.spgemm import main
+    from bmsparse.cli.spgemm import main
 
     rc = main([DATA, "A_matrix", "B_matrix", "0", "5", "0", "--check"])
     out = capsys.readouterr().out
@@ -102,7 +102,7 @@ def test_cli_spgemm(capsys):
 
 
 def test_cli_batch(tmp_path, capsys):
-    from bmsparse_tpu.cli.batch import main
+    from bmsparse.cli.batch import main
 
     lst = tmp_path / "list.txt"
     lst.write_text("A_matrix\nB_matrix\n")
@@ -115,7 +115,7 @@ def test_cli_batch(tmp_path, capsys):
 
 
 def test_cli_batch_survives_bad_matrix(tmp_path):
-    from bmsparse_tpu.cli.batch import main
+    from bmsparse.cli.batch import main
 
     lst = tmp_path / "list.txt"
     lst.write_text("A_matrix\nno_such_matrix\n")
@@ -135,8 +135,8 @@ def test_cg_example():
     import jax.numpy as jnp
 
     from cg import build_spd_stencil, cg
-    from bmsparse_tpu import coo_to_bmsparse
-    from bmsparse_tpu.ops.plan import prepare
+    from bmsparse import coo_to_bmsparse
+    from bmsparse.ops.plan import prepare
 
     n = 512
     rows, cols, vals = build_spd_stencil(n)

@@ -1,7 +1,7 @@
 """Value-dtype coverage — the reference instantiates bmSpMatrix for
 float, half and double (ref: src/bmSpMatrix.cu:435-437). Here: float32,
-bfloat16 (the TPU 16-bit type standing in for half — documented
-substitution) and float64 (CPU path; TPUs have no f64 units).
+bfloat16 (the 16-bit type standing in for half — documented
+substitution) and float64 (with x64 enabled).
 """
 
 import jax
@@ -10,10 +10,10 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from bmsparse_tpu import coo_to_bmsparse
-from bmsparse_tpu.ops.plan import prepare
-from bmsparse_tpu.ops.spmv import spmv
-from bmsparse_tpu.ops.spgemm import spgemm
+from bmsparse import coo_to_bmsparse
+from bmsparse.ops.plan import prepare
+from bmsparse.ops.spmv import spmv
+from bmsparse.ops.spgemm import spgemm
 
 from conftest import random_coo
 
@@ -67,9 +67,9 @@ def test_f64_subprocess():
         "import jax; jax.config.update('jax_enable_x64', True);"
         "jax.config.update('jax_platforms', 'cpu');"
         "import numpy as np, jax.numpy as jnp;"
-        "from bmsparse_tpu import coo_to_bmsparse;"
-        "from bmsparse_tpu.ops.plan import prepare;"
-        "from bmsparse_tpu.ops.spmv import spmv;"
+        "from bmsparse import coo_to_bmsparse;"
+        "from bmsparse.ops.plan import prepare;"
+        "from bmsparse.ops.spmv import spmv;"
         "rng = np.random.default_rng(0);"
         "rows = rng.integers(0, 64, 200).astype(np.int32);"
         "cols = rng.integers(0, 64, 200).astype(np.int32);"
@@ -90,7 +90,7 @@ def test_f64_subprocess():
         # SpGEMM must PRESERVE f64 end-to-end (the numeric/compress
         # stages accumulate in promote_types(operand, f32), so f64
         # operands stay f64 — they used to silently downcast to f32)
-        "from bmsparse_tpu.ops.spgemm import spgemm;"
+        "from bmsparse.ops.spgemm import spgemm;"
         "sco = m.to_scipy().tocoo();"
         "bt = coo_to_bmsparse(sco.row.astype(np.int32),"
         " sco.col.astype(np.int32), sco.data, (64, 64), transposed=True);"

@@ -7,7 +7,7 @@ import scipy.sparse as sp
 
 import jax.numpy as jnp
 
-from bmsparse_tpu import (
+from bmsparse import (
     BmSparse,
     CSRMatrix,
     bmsparse_to_csr,
@@ -17,7 +17,7 @@ from bmsparse_tpu import (
     mean_relative_error,
     save_bmsparse,
 )
-from bmsparse_tpu.format import bitmap as bm
+from bmsparse.format import bitmap as bm
 
 from conftest import random_coo
 
@@ -177,7 +177,7 @@ def test_bf16_values():
 
 
 def test_transpose():
-    from bmsparse_tpu import transpose
+    from bmsparse import transpose
 
     rows, cols, vals = random_coo(70, 120, density=0.06, seed=21)
     m = coo_to_bmsparse(rows, cols, vals, (70, 120))
@@ -196,7 +196,7 @@ def test_transpose():
     np.testing.assert_array_equal(c2, co)
     np.testing.assert_allclose(v2, vo)
     # transposed-storage result feeds SpGEMM's B operand
-    from bmsparse_tpu.ops.spgemm import spgemm
+    from bmsparse.ops.spgemm import spgemm
 
     bt = transpose(m, transposed=True)
     assert bt.transposed
@@ -229,7 +229,7 @@ def test_host_converter_matches_device():
 def test_host_converter_duplicate_coordinates_summed():
     """Duplicate (row, col) triplets must be summed (scipy/cusp COO
     assembly semantics), not corrupt bitmap/value alignment."""
-    from bmsparse_tpu import coo_to_bmsparse
+    from bmsparse import coo_to_bmsparse
 
     r = np.array([0, 0, 5, 5, 3], np.int32)
     c = np.array([1, 1, 3, 3, 2], np.int32)
@@ -243,7 +243,7 @@ def test_host_converter_duplicate_coordinates_summed():
 def test_host_converter_empty_matches_device_convention():
     """Empty input yields the one-padding-block container, like the
     device path's n == 0 special case."""
-    from bmsparse_tpu import coo_to_bmsparse
+    from bmsparse import coo_to_bmsparse
 
     z = np.zeros((0,), np.int32)
     m = coo_to_bmsparse(z, z, np.zeros((0,), np.float32), (16, 16),

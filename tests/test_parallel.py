@@ -8,11 +8,11 @@ import scipy.sparse as sp
 import jax
 import jax.numpy as jnp
 
-from bmsparse_tpu import coo_to_bmsparse, mean_relative_error
-from bmsparse_tpu.parallel.mesh import make_mesh
-from bmsparse_tpu.parallel.partition import partition
-from bmsparse_tpu.parallel.spgemm import estimate_bounds, sharded_spgemm
-from bmsparse_tpu.parallel.spmv import sharded_spmv
+from bmsparse import coo_to_bmsparse, mean_relative_error
+from bmsparse.parallel.mesh import make_mesh
+from bmsparse.parallel.partition import partition
+from bmsparse.parallel.spgemm import estimate_bounds, sharded_spgemm
+from bmsparse.parallel.spmv import sharded_spmv
 
 from conftest import random_coo
 
@@ -78,7 +78,7 @@ def test_sharded_spgemm(d):
 def test_sharded_matches_single_chip():
     a, a_ref = _make((64, 64), 0.1, seed=45)
     b, _ = _make((64, 64), 0.1, seed=46, transposed=True)
-    from bmsparse_tpu.ops.spgemm import spgemm
+    from bmsparse.ops.spgemm import spgemm
 
     c1 = spgemm(a, b)
     sa, sb = partition(a, 4), partition(b, 4)
@@ -92,8 +92,8 @@ def test_sharded_prepared_spmv():
     (parallel/plan.py) must match the single-chip result exactly."""
     import jax.numpy as jnp
 
-    from bmsparse_tpu.parallel.plan import prepare_sharded
-    from bmsparse_tpu.parallel.spmv import sharded_spmv_prepared
+    from bmsparse.parallel.plan import prepare_sharded
+    from bmsparse.parallel.spmv import sharded_spmv_prepared
 
     rng = np.random.default_rng(4)
     n = 1024
@@ -116,7 +116,7 @@ def test_sharded_prepared_spmv():
     assert len(spp.dia_offsets) <= 128
     v = rng.standard_normal(n).astype(np.float32)
     u = np.asarray(
-        sharded_spmv_prepared(spp, jnp.asarray(v), mesh, dia_impl="xla")
+        sharded_spmv_prepared(spp, jnp.asarray(v), mesh)
     )
     ref = sp.coo_matrix((vals, (rows, cols)), shape=(n, n)) @ v
     np.testing.assert_allclose(u, ref, rtol=1e-4, atol=1e-5)
@@ -127,8 +127,8 @@ def test_sharded_prepared_spmv_tall_matrix():
     """Tall matrices (num_rows >> num_cols): late shards' column-shift
     bases exceed num_cols; the DIA slice source must cover them
     (regression for a dynamic_slice clamp that misaligned those shards)."""
-    from bmsparse_tpu.parallel.plan import prepare_sharded
-    from bmsparse_tpu.parallel.spmv import sharded_spmv_prepared
+    from bmsparse.parallel.plan import prepare_sharded
+    from bmsparse.parallel.spmv import sharded_spmv_prepared
 
     n_rows, n_cols = 2048, 256
     r = np.arange(n_rows, dtype=np.int64)
@@ -142,8 +142,7 @@ def test_sharded_prepared_spmv_tall_matrix():
     spp = prepare_sharded(sm)
     assert spp.dia_offsets, "tall-diagonal structure should take the DIA tier"
     v = np.random.default_rng(8).standard_normal(n_cols).astype(np.float32)
-    u = np.asarray(sharded_spmv_prepared(spp, jnp.asarray(v), mesh,
-                                         dia_impl="xla"))
+    u = np.asarray(sharded_spmv_prepared(spp, jnp.asarray(v), mesh))
     ref = sp.csr_matrix((vals, (r, c)), shape=(n_rows, n_cols)) @ v
     np.testing.assert_allclose(u, ref, rtol=1e-5, atol=1e-5)
 
@@ -154,8 +153,8 @@ def test_sharded_product_selective_exchange(d):
     """Multi-chip SpGEMM fast path (parallel/product.py): host-planned
     task-SELL numeric per shard + selective all_to_all tile exchange must
     match the single-chip product exactly."""
-    from bmsparse_tpu.ops.spgemm import spgemm
-    from bmsparse_tpu.parallel.product import (
+    from bmsparse.ops.spgemm import spgemm
+    from bmsparse.parallel.product import (
         prepare_sharded_product, sharded_multiply,
     )
 
@@ -188,8 +187,8 @@ def test_sharded_product_value_update():
     new values (same structure) and re-multiplying must track them."""
     import dataclasses as dc
 
-    from bmsparse_tpu.ops.spgemm import spgemm
-    from bmsparse_tpu.parallel.product import (
+    from bmsparse.ops.spgemm import spgemm
+    from bmsparse.parallel.product import (
         prepare_sharded_product, sharded_multiply,
     )
 
@@ -212,8 +211,8 @@ def test_sharded_spmv_halo_exchange():
     """Halo exchange (two neighbour ppermutes instead of the full v
     all-gather) must be plan-feasible for banded structure and match the
     all-gather path exactly."""
-    from bmsparse_tpu.parallel.plan import prepare_sharded
-    from bmsparse_tpu.parallel.spmv import sharded_spmv_prepared
+    from bmsparse.parallel.plan import prepare_sharded
+    from bmsparse.parallel.spmv import sharded_spmv_prepared
 
     n = 2048
     r1 = np.repeat(np.arange(n), 5)
@@ -229,9 +228,9 @@ def test_sharded_spmv_halo_exchange():
     assert spp.halo is not None, "banded window must be halo-feasible"
     v = np.random.default_rng(22).standard_normal(n).astype(np.float32)
     u_halo = np.asarray(sharded_spmv_prepared(
-        spp, jnp.asarray(v), mesh, dia_impl="xla", exchange="halo"))
+        spp, jnp.asarray(v), mesh, exchange="halo"))
     u_ag = np.asarray(sharded_spmv_prepared(
-        spp, jnp.asarray(v), mesh, dia_impl="xla", exchange="allgather"))
+        spp, jnp.asarray(v), mesh, exchange="allgather"))
     ref = sp.csr_matrix((vals, (rows, cols)), shape=(n, n)) @ v
     np.testing.assert_allclose(u_halo, ref, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(u_halo, u_ag, rtol=1e-6, atol=1e-6)
@@ -243,8 +242,8 @@ def test_sharded_product_skew_fallback():
     padded selective exchange would then move at least as much as an
     all-gather, and the planner must fall back — with wire-true byte
     accounting (padding charged) either way."""
-    from bmsparse_tpu.ops.spgemm import spgemm
-    from bmsparse_tpu.parallel.product import (
+    from bmsparse.ops.spgemm import spgemm
+    from bmsparse.parallel.product import (
         prepare_sharded_product, sharded_multiply,
     )
 
@@ -280,7 +279,7 @@ def test_scaling_report_task_budget_guard():
     planning whose A@A task volume exceeds the budget — a 256k-row
     webgraph estimates 131M tasks, which can neither be planned nor
     simulated on the CPU mesh (ref harness: unconditional sweep)."""
-    from bmsparse_tpu.cli.scaling import (
+    from bmsparse.cli.scaling import (
         _estimate_spgemm_tasks, build_report,
     )
 
@@ -304,7 +303,7 @@ def test_sharded_spmv_nonladder_depth():
     the unified forced layout crashes ('forced layout lacks a K group
     this shard needs'). Repro: 5 blocks/row (a non-ladder depth) in
     shard 0."""
-    from bmsparse_tpu.parallel.plan import prepare_sharded
+    from bmsparse.parallel.plan import prepare_sharded
 
     n = 256
     rows = np.repeat(np.arange(n, dtype=np.int64), 5)

@@ -16,10 +16,10 @@ import jax.numpy as jnp
 import numpy as np
 import scipy.sparse as sp
 
-from bmsparse_tpu import coo_to_bmsparse
-from bmsparse_tpu.ops.plan import prepare
-from bmsparse_tpu.ops.spgemm import spgemm
-from bmsparse_tpu.ops.spmv import spmv
+from bmsparse import coo_to_bmsparse
+from bmsparse.ops.plan import prepare
+from bmsparse.ops.spgemm import spgemm
+from bmsparse.ops.spmv import spmv
 
 
 def _coo(rows, cols, vals, shape, **kw):
@@ -79,7 +79,7 @@ def test_spmv_rectangular_tall_and_wide():
 
 
 def test_segmented_sort_matches_reference_semantics():
-    from bmsparse_tpu.ops.segsort import segmented_sort, sort_by_key
+    from bmsparse.ops.segsort import segmented_sort, sort_by_key
 
     rng = np.random.default_rng(1)
     seg = jnp.asarray(rng.integers(0, 50, 4000).astype(np.int32))

@@ -7,8 +7,8 @@ import scipy.sparse as sp
 
 import jax.numpy as jnp
 
-from bmsparse_tpu import CSRMatrix, coo_to_bmsparse, csr_spmv, spmv
-from bmsparse_tpu.oracle.scipy_oracle import oracle_spmv
+from bmsparse import CSRMatrix, coo_to_bmsparse, csr_spmv, spmv
+from bmsparse.oracle.scipy_oracle import oracle_spmv
 
 from conftest import random_coo
 
@@ -63,7 +63,7 @@ def test_spmv_bf16():
 )
 def test_spmv_prepared_matches(shape, density):
     # tiered plan (window + remainder) must agree with the direct path
-    from bmsparse_tpu.ops.plan import prepare
+    from bmsparse.ops.plan import prepare
 
     rows, cols, vals = random_coo(*shape, density=density, seed=hash(shape) % 991)
     ref = sp.csr_matrix((vals, (rows, cols)), shape=shape)
@@ -76,7 +76,7 @@ def test_spmv_prepared_matches(shape, density):
 
 def test_spmv_prepared_banded():
     # strongly banded matrix: most nnz should land in the DIA tier
-    from bmsparse_tpu.ops.plan import prepare
+    from bmsparse.ops.plan import prepare
 
     n = 512
     rng = np.random.default_rng(9)
@@ -96,7 +96,7 @@ def test_spmv_prepared_banded():
 
 def test_spmv_prepared_empty_and_tiny():
     # empty matrix and single-block-row matrices go through the plan path
-    from bmsparse_tpu.ops.plan import prepare
+    from bmsparse.ops.plan import prepare
 
     e = coo_to_bmsparse(
         np.empty(0, np.int32), np.empty(0, np.int32),
@@ -139,10 +139,10 @@ def test_real_structure_families_spmv():
     choice for each family."""
     import scipy.sparse as ssp
 
-    from bmsparse_tpu import coo_to_bmsparse
-    from bmsparse_tpu.ops.plan import prepare
-    from bmsparse_tpu.ops.spmv import spmv
-    from bmsparse_tpu.utils import testmats as tm
+    from bmsparse import coo_to_bmsparse
+    from bmsparse.ops.plan import prepare
+    from bmsparse.ops.spmv import spmv
+    from bmsparse.utils import testmats as tm
 
     for name, gen in [
         ("fem2d", lambda: tm.fem2d(64, seed=7)),
@@ -166,7 +166,7 @@ def test_sell_win64_superslots_match_blocks():
     merging a row's clustered blocks) must agree with the per-block
     (cw=8) plan, and the auto policy must pick cw=64 only when the
     merge factor justifies it."""
-    from bmsparse_tpu.ops.plan import prepare
+    from bmsparse.ops.plan import prepare
 
     rng = np.random.default_rng(31)
     # clustered-column structure (road-like): blocks of each row share
@@ -218,7 +218,7 @@ def test_adaptive_k_buckets_dp():
     """The partition DP must (a) return exact depths when distinct chunk
     maxima fit the group budget, (b) never pad below a chunk's max,
     (c) beat or match the fixed geometric ladder on a skewed histogram."""
-    from bmsparse_tpu.ops.plan import (
+    from bmsparse.ops.plan import (
         MAX_SELL_GROUPS, _adaptive_k_buckets, _bucket_k,
     )
 
@@ -237,3 +237,102 @@ def test_adaptive_k_buckets_dp():
     assert pad.sum() <= fixed.sum()
     # non-increasing input stays non-increasing (groups contiguous)
     assert np.all(np.diff(pad) <= 0)
+
+
+def _clustered_coo(n, deg, spread, seed):
+    """Road-like rows: each row's columns cluster near a random center."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n, dtype=np.int64), deg)
+    centers = rng.integers(0, n, size=n)
+    cols = np.clip(centers[rows] + rng.integers(0, spread, size=rows.shape[0]),
+                   0, n - 1)
+    key = np.unique(rows * n + cols)
+    rows, cols = np.divmod(key, n)
+    return rows, cols
+
+
+def _road_like_coo(n, seed):
+    """Locally clustered rows plus ~1% far 'highway' links."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n, dtype=np.int64), 4)
+    cols = np.clip(rows + rng.integers(-40, 41, size=rows.shape[0]), 0, n - 1)
+    hs, hd = rng.integers(0, n, n // 100), rng.integers(0, n, n // 100)
+    key = np.unique(np.concatenate([rows, hs]) * n
+                    + np.concatenate([cols, hd]))
+    return np.divmod(key, n)
+
+
+def _uniform_coo(n, per_row, seed):
+    rng = np.random.default_rng(seed)
+    flat = rng.choice(n * n, size=n * per_row, replace=False)
+    return np.divmod(flat, n)
+
+
+def _web_coo(n, deg, seed):
+    from bmsparse.utils.testmats import webgraph
+
+    rows, cols, _, _ = webgraph(n, avg_deg=deg, seed=seed)
+    return rows, cols
+
+
+_SPMV_STRUCTURES = {
+    "clustered": (4096, lambda: _clustered_coo(4096, 6, 48, 31)),
+    "clustered_wide": (4096, lambda: _clustered_coo(4096, 5, 90, 13)),
+    "scattered": (4096, lambda: _uniform_coo(4096, 4, 3)),
+    "tiny": (16, lambda: (np.array([0, 1, 5, 9]), np.array([3, 9, 1, 14]))),
+    "bf16": (1024, lambda: _clustered_coo(1024, 4, 30, 5)),
+    "road_like": (32768, lambda: _road_like_coo(32768, 11)),
+    "web4k": (4096, lambda: _web_coo(4096, 6, 0)),
+    "web16k": (16384, lambda: _web_coo(16384, 8, 1)),
+}
+
+
+@pytest.mark.parametrize("structure", sorted(_SPMV_STRUCTURES))
+def test_spmv_structures_match_scipy(structure):
+    """Clustered, scattered, tiny, road-like and web structures through
+    prepare() + the block tiers (stream tier off) against scipy in
+    float64; the bf16 plan against its bf16-rounded values."""
+    from bmsparse.ops.plan import prepare
+
+    n, gen = _SPMV_STRUCTURES[structure]
+    rows, cols = gen()
+    rng = np.random.default_rng(7)
+    vals = rng.standard_normal(len(rows)).astype(np.float32)
+    m = coo_to_bmsparse(rows.astype(np.int32), cols.astype(np.int32), vals,
+                        (n, n), backend="host")
+    dtype = jnp.bfloat16 if structure == "bf16" else None
+    p = prepare(m, dtype=dtype, stream="off")
+    assert p.stream is None
+    if dtype is not None:
+        vals = np.asarray(jnp.asarray(vals, dtype).astype(jnp.float32))
+    v = rng.standard_normal(n).astype(np.float32)
+    ref = sp.csr_matrix((vals.astype(np.float64), (rows, cols)),
+                        shape=(n, n)) @ v
+    u = np.asarray(spmv(p, jnp.asarray(v)))
+    np.testing.assert_allclose(u, ref, rtol=1e-4,
+                               atol=1e-4 * np.abs(ref).max())
+
+
+def test_sell_groups_one_per_depth():
+    """The SELL builder forms exactly one group per padded depth K, in
+    descending order, and every chunk of a group has that depth."""
+    from bmsparse.ops.plan import _build_sell_tier
+
+    nbr, ncu, cw = 512, 4096, 8
+    rng = np.random.default_rng(0)
+    # 1..4 slots per block row -> several K classes
+    per_row = rng.integers(1, 5, nbr)
+    ubr = np.repeat(np.arange(nbr, dtype=np.int64), per_row)
+    ubc = np.concatenate([rng.choice(ncu, k, replace=False)
+                          for k in per_row]).astype(np.int64)
+    key = np.unique(ubr * ncu + ubc)
+    ubr, ubc = np.divmod(key, ncu)
+    vals = rng.standard_normal(len(ubr)).astype(np.float32)
+    dense, bcol, ks, og, rows_total = _build_sell_tier(
+        np.arange(len(ubr)), ubr, ubc, np.zeros(len(ubr), np.int64), vals,
+        np.arange(len(ubr)), nbr, ncu, cw, np.dtype(np.float32))
+    assert list(ks) == sorted(set(ks), reverse=True)
+    for d, b, k in zip(dense, bcol, ks):
+        assert d.shape[2] == k and b.size == d.shape[1] * k * 128
+    assert rows_total == sum(d.shape[1] for d in dense) * 128
+    assert og.shape == (nbr,) and (og < rows_total).all()

@@ -23,7 +23,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from bmsparse_tpu.utils import testmats as tm  # noqa: E402
+from bmsparse.utils import testmats as tm  # noqa: E402
 
 
 def make_banded(n, band, seed=0):
